@@ -160,13 +160,11 @@ def main():
                          "configs where a second solve busts the budget")
     args = ap.parse_args()
 
+    from otamg.config import enable_compile_cache
+
+    enable_compile_cache()
     import jax
 
-    try:
-        jax.config.update("jax_compilation_cache_dir",
-                          "/root/repo/.jax_cache")
-    except Exception:
-        pass
     jax.config.update("jax_enable_x64", True)
 
     configs = {int(c) for c in args.configs.split(",")}
@@ -197,8 +195,7 @@ def main():
     if 6 in configs:
         # Class-2 at 1024^2 (round-4 addition; the reference's own
         # Class2 driver was written for 1000^2 inputs,
-        # ``Class2/APD_SsN_Class2.m:20``).  TPU invariant: it=56
-        # (benchmarks/RESULTS_tpu.jsonl r4_c2_1024).
+        # ``Class2/APD_SsN_Class2.m:20``).
         ndev = len(jax.devices())
         mesh = None
         if ndev > 1:

@@ -5,7 +5,7 @@ Replaces the reference's native graph layer with jittable equivalents:
 * :func:`connected_components_bipartite` replaces SuiteSparse ``dmperm``
   (``components.m:36``) with min-label propagation + pointer-jumping
   compression on the bipartite edge mask — O(log diameter) rounds, each a
-  masked min-reduction over the ``(m, n)`` grid (VPU friendly).
+  masked min-reduction over the ``(m, n)`` grid.
 * :func:`strength_dense` is ``AMG/strength.m`` (symmetrized case 2) on a
   capacity-padded dense matrix with an activity mask.
 * :func:`mis_dense` is the approximate-MIS C/F splitting of
@@ -127,7 +127,13 @@ def mis_dense(As: jax.Array, active: jax.Array, key: jax.Array,
         # (smoother alone is a good preconditioner there, mis_set.m:30-34).
         score = jax.random.uniform(kb, (N,), fdtype)
         score = jnp.where(active, score, jnp.inf)
-        rank = jnp.argsort(jnp.argsort(score))  # dense rank of each node
+        # Dense rank of each node: the inverse of the sort permutation,
+        # by scatter.  (argsort of an argsort trips an XLA GPU pass —
+        # permutation_sort_simplifier — into invalid HLO with int64
+        # indices.)
+        order = jnp.argsort(score)
+        rank = jnp.zeros(N, order.dtype).at[order].set(
+            jnp.arange(N, dtype=order.dtype), unique_indices=True)
         isC = jnp.logical_and(active, rank < N0.astype(rank.dtype))
         isF = jnp.logical_and(active, jnp.logical_not(isC))
         return CFSplit(isC, isF)

@@ -1,14 +1,16 @@
 """AMG hierarchy: setup, cycles and the classical solve loop (layer L3).
 
 Reimplements the reference engine (``AMG/Class_AMG.m``, ``AMG/transfer.m``,
-``AMG/MG_Vcycle.m``, ``AMG/MG_Wcycle.m``) with a TPU-native structure:
+``AMG/MG_Vcycle.m``, ``AMG/MG_Wcycle.m``) with an accelerator-native
+structure:
 
 * **Level 1 is structured, not sparse.**  The fine operator is
   ``Ae = diag(g) - E/tk`` on the bipartite node set (q-side then p-side),
   where ``E`` is the ``(m, n)`` masked-dense edge-weight matrix
   ``E_ij = p_i^2 q_j^2 s_ij``.  Matvecs, the block Gauss-Seidel smoother
   (``Class_AMG.m:48-59``) and the level-1 ideal interpolation
-  (``transfer.m:19-25``) are all GEMV/GEMM on ``E`` — MXU work, no CSR.
+  (``transfer.m:19-25``) are all GEMV/GEMM on ``E`` — dense BLAS work, no
+  CSR.
 * **Coarse levels are capacity-padded dense.**  MIS coarsening yields
   data-dependent sizes; each level has a *static* capacity
   (``ceil(ratio * prev)``) with an activity mask, padded entries carry an
@@ -123,9 +125,9 @@ class HaloCSRLevel:
     runs the halo-exchange distributed SpMV (``otamg/dist/spmv.py::
     spmv_halo`` — bidirectional ``ppermute`` ring, interior compute
     overlapped with the halo transfer).  The production consumer of the
-    halo path (round-4 verdict item 7): banded operators at
-    ``N >~ 1e5`` where replicating the vector (the all_gather scheme)
-    wastes ICI bandwidth the band structure doesn't need.
+    halo path: banded operators at ``N >~ 1e5`` where replicating the
+    vector (the all_gather scheme) wastes interconnect bandwidth the band
+    structure doesn't need.
 
     Static aux: ``(mesh, halo)`` — the mesh is topology, not data."""
 
@@ -198,19 +200,9 @@ def _lvl_size(lv) -> int:
 
 
 def csr_matvec(lv: CSRLevel, v: jax.Array) -> jax.Array:
-    # Production consumer of the Pallas ELL SpMV (round-4 on-chip
-    # measurement: 86 GB/s vs the XLA gather's 18 GB/s at 2048x204,
-    # 517 GB/s at 8192 — benchmarks/KERNELS_tpu.jsonl).  The kernel
-    # itself falls back to the XLA path for f64 operands or rows denser
-    # than ELL pays for; here we additionally gate on TPU + a size floor
-    # below which dispatch overhead dominates any kernel choice.
-    if (jax.default_backend() == "tpu"
-            and lv.ell_vals.dtype == jnp.float32
-            and lv.ell_cols.shape[0] >= 1024):
-        from otamg.sparse.kernels import ell_spmv
+    from otamg.sparse.kernels import ell_spmv
 
-        return ell_spmv(lv.ell_cols, lv.ell_vals, v)
-    return jnp.sum(lv.ell_vals * v[lv.ell_cols], axis=1)
+    return ell_spmv(lv.ell_cols, lv.ell_vals, v)
 
 
 def csr_smooth_apply(lv: CSRLevel, r: jax.Array,
@@ -583,28 +575,26 @@ def _build_dense_chain(A0, act0, lab0, nsp0, caps, opts: AMGOptions,
         # reference re-solves the coarsest system by Jacobi-PCG on every
         # cycle visit (``MG_Vcycle.m:43``; its direct solve is commented at
         # ``:44``) — a W-cycle visits the coarsest level 2^(levels-2) times
-        # per cycle, so on TPU we eigendecompose here (f64; the matrix is
-        # ~N^(1/3), so this is negligible even under TPU f64 emulation) and
-        # each visit applies the spectrally-filtered inverse (see the
-        # DenseLevel.einv doc for why exact inversion is unstable at the
-        # solve dtype).  Padding rows carry an identity diagonal.
+        # per cycle, so we eigendecompose here (the matrix is small, so
+        # this is negligible) and each visit applies the
+        # spectrally-filtered inverse (see the DenseLevel.einv doc for why
+        # exact inversion is unstable at the solve dtype).  Padding rows
+        # carry an identity diagonal.
         if last:
             # Eigendecompose in the SOLVE dtype: the spectral filter below
             # truncates everything under ~256 ulps of lambda_max, so the
             # retained spectrum has condition <= ~1/(256 eps) — well
             # within the dtype's factorization range, and the deflated
             # cycle handles the truncated directions elsewhere.  (An f64
-            # factor was only needed by the earlier exact-solve design;
-            # on TPU f64 eigh is software-emulated and cost ~seconds per
-            # hierarchy setup.)
+            # factor was only needed by the earlier exact-solve design.)
             lam, evecs = jnp.linalg.eigh(A_cur)
             # Truncation margin: the restricted residual reaching the
             # coarsest level carries a few-to-tens of ulps of solve-dtype
-            # matmul noise per restriction hop (more on the TPU MXU's
-            # multi-pass fp32 than on CPU FMA), so the low-precision
+            # matmul noise per restriction hop, so the low-precision
             # cutoff needs real headroom above eps — at 4 eps the fp32
-            # cycle diverges on TPU in the small-bk1 regime while passing
-            # on CPU.  f64 stays at 4 eps (never binds in practice).
+            # cycle can diverge in the small-bk1 regime, depending on the
+            # device's fp32 summation order.  f64 stays at 4 eps (never
+            # binds in practice).
             factor = 4.0 if dtype == jnp.float64 else float(
                 opts.coarse_cutoff_ulps)
             cutoff = factor * jnp.finfo(dtype).eps * jnp.max(jnp.abs(lam))
@@ -989,7 +979,7 @@ def _coarse_solve(lv, r, nseg: int, deflated: bool, coarse_retol: float,
     if coarse_direct and isinstance(lv, DenseLevel) \
             and lv.evecs.shape[0] > 0:
         rc = r.astype(lv.evecs.dtype)
-        e_c = lv.evecs @ (lv.einv * (lv.evecs.T @ rc))
+        e_c = _mm(lv.evecs, lv.einv * _mm(lv.evecs.T, rc))
         if deflated:
             # Keep the coarse correction kernel-free too (the spectral
             # filter truncates most of it; this removes the rest exactly).
@@ -1035,10 +1025,9 @@ def make_cycle(num_dense: int, smoth_it: int, gamma: int, nseg: int,
     correction-form linear update).  ``cycle.build_deep(lv1, dense,
     dtype)`` materializes it ONCE per Newton solve as a ``(cap1, cap1)``
     matrix by vmapping the exact sub-tape over identity columns (the
-    GEMVs batch into MXU GEMMs); passing the result as ``deep_D``
-    replaces the whole op-count-bound deep tape (the measured 34 ms/
-    W-cycle bottleneck at 4096 nodes, ``benchmarks/NEWTON_tpu.jsonl``)
-    with one GEMV per cycle.  Same linear algebra, different rounding
+    GEMVs batch into GEMMs); passing the result as ``deep_D`` replaces
+    the whole op-count-bound deep tape of many tiny GEMVs with one GEMV
+    per cycle.  Same linear algebra, different rounding
     order — trajectory pins are re-verified with the flag on.
     """
     num_levels = num_dense + 1
@@ -1178,7 +1167,7 @@ def make_cycle(num_dense: int, smoth_it: int, gamma: int, nseg: int,
     def _deep_algebraic(dense: Sequence[DenseLevel], dtype):
         """Bottom-up algebraic build of the deep matrix ``D`` (math
         convention: ``e1 = D @ r1``) from per-level closed forms — pure
-        GEMMs on the MXU, no scatters and no scanned tape.
+        GEMMs, no scatters and no scanned tape.
 
         Every deep-tape op has a dense matrix form: the (projected)
         Jacobi sweep is ``e' = G1 e + B1 r`` with the kernel projections
@@ -1189,9 +1178,8 @@ def make_cycle(num_dense: int, smoth_it: int, gamma: int, nseg: int,
         ``D = C + C' (I - A C)``, and the coarse solve is
         ``evecs diag(einv) evecs^T`` (+ deflation projector).  Exact
         arithmetic matches the tape op-for-op; rounding differs (pins
-        re-verified).  Replaces the vmapped-tape build whose batched
-        segment-sum scatters measured 160 ms of pure overhead at
-        4096-node scale (benchmarks/NEWTON_tpu.jsonl round-5 rows)."""
+        re-verified).  Replaces the vmapped-tape build, whose batched
+        segment-sum scatters were pure overhead."""
         phase_cache: dict = {}
         node_cache: dict = {}
 
@@ -1285,7 +1273,7 @@ def make_cycle(num_dense: int, smoth_it: int, gamma: int, nseg: int,
         when fusing cannot pay (fewer than 2 dense levels).
 
         Primary path: closed-form bottom-up composition
-        (:func:`_deep_algebraic` — pure MXU GEMMs).  Fallback (non-dense
+        (:func:`_deep_algebraic` — pure GEMMs).  Fallback (non-dense
         deep chain or PCG coarse solve): vmap the EXACT sub-tape over
         identity columns."""
         if not can_fuse:

@@ -12,7 +12,32 @@ from __future__ import annotations
 
 import dataclasses
 import enum
+import os
 from typing import Optional
+
+
+def enable_compile_cache() -> Optional[str]:
+    """Turn on JAX's persistent compilation cache; return its directory.
+
+    * ``JAX_COMPILATION_CACHE_DIR`` set: JAX already reads it, and no
+      other directory is set here.
+    * ``OTAMG_NO_COMPILE_CACHE=1``: no cache (the test suite sets this,
+      since an in-process ``cli.main()`` would otherwise turn the cache on
+      for the whole session).
+    * Otherwise ``<checkout>/.jax_cache``, resolved from this package's
+      path, so the directory (part of the cache key) never moves.
+    """
+    env = os.environ.get("JAX_COMPILATION_CACHE_DIR")
+    if env:
+        return env
+    if os.environ.get("OTAMG_NO_COMPILE_CACHE") == "1":
+        return None
+    import jax
+
+    path = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), ".jax_cache")
+    jax.config.update("jax_compilation_cache_dir", path)
+    return path
 
 
 class Preconditioner(enum.Enum):
@@ -28,12 +53,11 @@ class Preconditioner(enum.Enum):
 class Cycle(enum.Enum):
     V = "v"
     W = "w"
-    # F-cycle (TPU-build extension, no reference analogue): the W-cycle
-    # revisit structure but the SECOND child visit runs as a V-cycle, so
-    # level l is visited l+1 times (linear in depth) instead of 2^(l-1)
-    # (exponential).  Round-4 measurement: a W-cycle's wall time is
-    # op-count bound at the deep (tiny) levels, so F trades a little
-    # convergence rate for a much shorter tape.
+    # F-cycle (extension, no reference analogue): the W-cycle revisit
+    # structure but the SECOND child visit runs as a V-cycle, so level l
+    # is visited l+1 times (linear in depth) instead of 2^(l-1)
+    # (exponential).  A W-cycle's deep (tiny) levels are op-count bound,
+    # so F trades a little convergence rate for a much shorter tape.
     F = "f"
 
 
@@ -79,7 +103,7 @@ class AMGOptions:
     cycle: Cycle = Cycle.W
     isnsp: bool = True
     inter: float = 1.0  # 0 direct / 1 standard / 2 ideal interpolation
-    # --- TPU-build extensions (no reference analogue) ---
+    # --- extensions (no reference analogue) ---
     max_levels: int = 10          # static unroll bound for the hierarchy
     coarsen_ratio: float = 0.625  # per-level capacity shrink for padding
     coarse_pcg: PCGOptions = dataclasses.field(default_factory=PCGOptions)
@@ -97,20 +121,19 @@ class AMGOptions:
     # Coarsest-grid target size.  None = the reference depth rule
     # ``1 + floor(N_fine^(1/3))`` (``Class_AMG.m:76``) — sized for a
     # sparse-CPU direct/PCG solve.  With the setup-time eigensolve a much
-    # larger coarsest level costs the same per visit (one small GEMV pair
-    # on the MXU) while cutting hierarchy depth — and a W-cycle's tape
-    # length is EXPONENTIAL in depth, which dominates the per-cycle cost.
-    # Default 128: 2.8x faster end-to-end than the reference rule on the
-    # 500x500 fixture with identical outer trajectories (it=58, 0 fails,
-    # both precisions).  Set None for the reference depth rule.
+    # larger coarsest level costs the same per visit (one small GEMV
+    # pair) while cutting hierarchy depth — and a W-cycle's tape length
+    # is EXPONENTIAL in depth, which dominates the per-cycle cost.
+    # Default 128 keeps the reference rule's outer trajectories on the
+    # 500x500 fixture (it=58, 0 fails, both precisions).  Set None for
+    # the reference depth rule.
     coarse_target: Optional[int] = 128
     # Coarsest-grid target size: reference coarsens until
     # ``size <= 1 + floor(N_fine**(1/3))`` (``Class_AMG.m:76``).
     # Fused deep correction: materialize the (linear) sub-tape below the
     # fine level as ONE dense matrix per Newton solve and apply it as a
     # single GEMV per cycle, replacing the op-count-bound deep visit
-    # chain (round-4 measurement: ~34 ms/W-cycle at 4096 nodes was
-    # serialized µs-GEMV dispatches).  Same linear algebra at a
+    # chain of many tiny GEMVs.  Same linear algebra at a
     # different rounding order; trajectory pins are tested with the
     # flag both off and on.  No effect with fewer than 2 dense levels.
     fuse_deep: bool = False
@@ -151,13 +174,13 @@ class APDOptions:
     seed: int = 0
     # Mixed precision: dtype name ("float32") for the inner Newton-system
     # solver; None = same precision as the problem.  With fp32 the hybrid
-    # solvers polish via f64 iterative refinement (TPU mode: f64 APD
-    # layer, fp32 MXU hierarchy).
+    # solvers polish via f64 iterative refinement (f64 APD layer, fp32
+    # AMG hierarchy).
     solve_dtype: Optional[str] = None
     # Class-2 tail safeguard (no reference analogue): when the three
     # complementarity residuals are at target but the feasibility
-    # residual kkt_l stalls (degenerate active-set chatter under TPU
-    # emulated-f64 rounding), project the primal onto {Hu=b} via the
+    # residual kkt_l stalls (degenerate active-set chatter under
+    # low-precision rounding), project the primal onto {Hu=b} via the
     # closed-form inv_hht and re-measure the FULL KKT on the polished
     # iterate (otamg/ot/operators.py::feasibility_polish).  Off by
     # default so fixture-trajectory contracts match the reference

@@ -1,5 +1,5 @@
 """Distribution layer: mesh construction and sharding rules (SURVEY.md
-section 2.3's TPU-native parallelism mapping).
+section 2.3's accelerator parallelism mapping).
 
 The reference is entirely serial; the scaling dimension of this framework
 is the plan size ``m x n`` (SURVEY.md section 5.7).  The sharding design:
@@ -9,7 +9,7 @@ is the plan size ``m x n`` (SURVEY.md section 5.7).  The sharding design:
   a 1-D mesh axis ``"x"`` (the p/m side), ``p`` sharded alike;
 * the ``(n + m)`` KKT/dual vectors are **replicated** — they are tiny
   compared to the plan, and every operator application reduces over the
-  sharded axis (``X^T p``) with an XLA ``psum`` riding the ICI;
+  sharded axis (``X^T p``) with an XLA ``psum`` over the interconnect;
 * AMG coarse grids below the crossover (everything from level 2 down:
   dense ``m x m`` and smaller) are gathered/replicated — the classic
   coarse-grid agglomeration.
@@ -17,7 +17,8 @@ is the plan size ``m x n`` (SURVEY.md section 5.7).  The sharding design:
 We express this through ``jax.sharding.NamedSharding`` constraints and let
 the XLA SPMD partitioner insert the collectives, per the scaling-book
 recipe: pick a mesh, annotate shardings, let XLA work.  ``shard_map`` is
-reserved for the Pallas halo-exchange kernels in :mod:`otamg.sparse`.
+reserved for the explicit-collective paths (:mod:`otamg.dist.spmv`,
+:mod:`otamg.dist.assembly`).
 """
 
 from __future__ import annotations
@@ -37,9 +38,9 @@ def make_mesh(num_devices: Optional[int] = None,
 
     After :func:`init_multihost`, ``jax.devices()`` spans every process's
     devices, so the same mesh construction scales from one chip to a
-    multi-host slice: the row-block sharding keeps each block's collective
-    partners ICI-adjacent within a host and lets only the ``psum``
-    reductions cross the DCN."""
+    multi-host cluster: the row-block sharding keeps each block's
+    collective partners on the fast links within a host and lets only the
+    ``psum`` reductions cross the network between hosts."""
     devs = jax.devices()
     if num_devices is not None:
         devs = devs[:num_devices]
@@ -51,7 +52,7 @@ def init_multihost(coordinator: Optional[str] = None,
                    process_id: Optional[int] = None) -> bool:
     """Initialize ``jax.distributed`` for multi-host execution (SURVEY.md
     section 2.3: single process -> multi-host via
-    ``jax.distributed.initialize``; DCN across hosts, ICI within).
+    ``jax.distributed.initialize``).
 
     Arguments fall back to ``OTAMG_COORDINATOR`` / ``OTAMG_NUM_PROCESSES``
     / ``OTAMG_PROCESS_ID`` environment variables (so launchers that only

@@ -8,7 +8,7 @@ reduces over that axis, so the distributed form needs exactly two
 collective patterns:
 
 * column reductions (``d1 = Y^T p^2``, ``a0``'s column sums) — a local
-  partial GEMV followed by ``psum`` riding the ICI;
+  partial GEMV followed by ``psum`` over the interconnect;
 * row-side small vectors (``d2``, ``a0``'s row sums, ``p^2``) — local
   compute plus one tiled ``all_gather`` to build the replicated
   ``(n + m)`` KKT diagonal.

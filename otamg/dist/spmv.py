@@ -5,8 +5,8 @@ over a 1-D mesh axis (the framework's plan/KKT row partition):
 
 * :func:`spmv_allgather` — gather the full input vector, local ELL SpMV.
   Right when ``x`` is small relative to the matrix (this framework's KKT
-  vectors) or the sparsity is unstructured: one ``all_gather`` riding ICI,
-  local compute at full bandwidth.
+  vectors) or the sparsity is unstructured: one ``all_gather`` over the
+  interconnect, local compute at full bandwidth.
 * :func:`spmv_halo` — for *banded* row partitions (each shard's column
   support fits its own rows plus a ``halo`` margin): exchange only the
   halo slices with neighbor shards via ``ppermute`` (bidirectional ring),
@@ -34,7 +34,7 @@ try:  # jax >= 0.8
 except ImportError:  # pragma: no cover - older jax
     from jax.experimental.shard_map import shard_map
 
-from otamg.sparse.kernels import ell_spmv_xla
+from otamg.sparse.kernels import ell_spmv
 
 
 def spmv_allgather(mesh: Mesh, ell_cols, ell_vals, x,
@@ -43,7 +43,7 @@ def spmv_allgather(mesh: Mesh, ell_cols, ell_vals, x,
 
     def local(cols, vals, xs):
         xfull = lax.all_gather(xs, axis_name, tiled=True)
-        return ell_spmv_xla(cols, vals, xfull)
+        return ell_spmv(cols, vals, xfull)
 
     return shard_map(
         local, mesh=mesh,
@@ -81,8 +81,8 @@ def spmv_halo(mesh: Mesh, ell_cols, ell_vals, x, halo: int,
         lcols = jnp.clip(cols - base, 0, R + 2 * halo - 1)
         # Overlap BY CONSTRUCTION: split the row sums into an interior
         # term that reads only local data (no collective in its dependency
-        # cone — schedulable while the ppermute is in flight on TPU, where
-        # collectives compile to async start/done pairs) plus a small
+        # cone — schedulable while the ppermute is in flight, as XLA
+        # compiles collectives to async start/done pairs) plus a small
         # halo-correction term that alone depends on the exchange.  The
         # split is exact: the two gathered vectors are disjointly nonzero.
         zeros_h = jnp.zeros(halo, xs.dtype)

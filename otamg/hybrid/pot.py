@@ -45,8 +45,8 @@ def make_pot_amg_solver(p: jax.Array, q: jax.Array, Phi: jax.Array,
         sg = 1.0 / tk
         z1, z2 = rhs[:-1], rhs[-1]
         SPhi = S * Phi
-        # O(mn) same-sign reduction: chunked (TPU emulated-f64 reduce
-        # loses ~4e-14*N relative accuracy on long accumulators)
+        # O(mn) same-sign reduction: chunked (a long sequential
+        # accumulator loses ~N ulps of relative accuracy)
         phi_e = bk1 + sg * op.vdot_hi(Phi, SPhi)
         v = op.apply_A(SPhi, p, q)
         w = z1 - (sg / phi_e) * z2 * v
@@ -80,8 +80,8 @@ def make_pot_pcg_solver(p: jax.Array, q: jax.Array, Phi: jax.Array,
         sg = 1.0 / tk
         z1, z2 = rhs[:-1], rhs[-1]
         SPhi = S * Phi
-        # O(mn) same-sign reduction: chunked (TPU emulated-f64 reduce
-        # loses ~4e-14*N relative accuracy on long accumulators)
+        # O(mn) same-sign reduction: chunked (a long sequential
+        # accumulator loses ~N ulps of relative accuracy)
         phi_e = bk1 + sg * op.vdot_hi(Phi, SPhi)
         v = op.apply_A(SPhi, p, q)
         w = z1 - (sg / phi_e) * z2 * v

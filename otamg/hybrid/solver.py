@@ -13,13 +13,13 @@ matrix terms ``Ae = diag(g) - E/tk`` with ``E_ij = p_i^2 q_j^2 s_ij`` and
 ``g = bk1 [q^2; p^2] + (k + a0diag)/tk`` — exactly the structured form
 :mod:`otamg.amg.hierarchy` is built around.
 
-TPU-first redesign of the component dispatch (``Hybrid_AMG.m:27-91``):
-instead of permuting per-component submatrices out of the matrix and
-running one AMG per large component plus a direct solve on gathered small
-ones, we label components on-device (label propagation replaces
-``dmperm``), and solve *all* components simultaneously in one masked
-hierarchy whose kernel-projected smoothing and interpolation normalization
-act per component through the labels.  Same math, no data-dependent shapes,
+Accelerator-first redesign of the component dispatch
+(``Hybrid_AMG.m:27-91``): instead of permuting per-component submatrices
+out of the matrix and running one AMG per large component plus a direct
+solve on gathered small ones, we label components on-device (label
+propagation replaces ``dmperm``), and solve *all* components
+simultaneously in one masked hierarchy whose kernel-projected smoothing
+and interpolation normalization act per component through the labels.  Same math, no data-dependent shapes,
 no sequential component loop.
 """
 
@@ -32,7 +32,7 @@ from jax import lax
 import os
 
 from otamg.amg.graph import connected_components_bipartite
-from otamg.amg.hierarchy import amg_solve, setup_hierarchy
+from otamg.amg.hierarchy import _mm, amg_solve, setup_hierarchy
 
 # Diagnostic tracing of the mixed-precision refinement loop (adds host
 # syncs; debug runs only).
@@ -91,8 +91,8 @@ def make_hybrid_amg_solver(p: jax.Array, q: jax.Array,
     ``twogrid_bigph.m`` — one coarse level, Jacobi-PCG coarse correction
     capped at 100 iterations, ``twogrid_bigph.m:98-99``).
 
-    Mixed precision (TPU): with ``solve_dtype=float32`` the hierarchy is
-    built and cycled in fp32 (MXU speed) and the solution is polished by
+    Mixed precision: with ``solve_dtype=float32`` the hierarchy is
+    built and cycled in fp32 and the solution is polished by
     ``refine`` rounds of iterative refinement — true-precision residual
     through the *structured* operator (two masked GEMVs), fp32 correction
     solve reusing the same hierarchy.  The reference needs rel tol 1e-11
@@ -123,7 +123,7 @@ def make_hybrid_amg_solver(p: jax.Array, q: jax.Array,
         # collectives through the composition chain — pathologically
         # slow on a CPU mesh and pointless anyway (the deep levels are
         # replicated-scale objects).  Disable the fusion here; the
-        # single-controller TPU path keeps it.
+        # single-device and implicitly sharded paths keep it.
         opts = dataclasses.replace(opts, fuse_deep=False)
 
     def solve(S, tvec, bk1, tk, rhs, key) -> NewtonSolveResult:
@@ -157,7 +157,7 @@ def build_he_solver(S, tvec, bk1, tk, p, q, opts: AMGOptions,
     else:
         # Explicit-collectives distributed assembly (``ASAt.m:14-19`` /
         # ``Hybrid_AMG.m:16-24``): E row-block sharded, KKT diagonals
-        # replicated via psum + all_gather riding the ICI.
+        # replicated via psum + all_gather over the interconnect.
         from otamg.dist.assembly import transform_sharded
 
         E, g, kdiag = transform_sharded(dist_mesh, S, tvec, bk1, tk, p, q)
@@ -201,8 +201,8 @@ def build_he_solver(S, tvec, bk1, tk, p, q, opts: AMGOptions,
 
         def ae_hi(v):
             v1, v2 = v[:n], v[n:]
-            ev1 = p2 * (Shi @ (q2 * v1))
-            ev2 = q2 * (Shi.T @ (p2 * v2))
+            ev1 = p2 * _mm(Shi, q2 * v1)
+            ev2 = q2 * _mm(Shi.T, p2 * v2)
             return ghi * v - jnp.concatenate([ev2, ev1]) / tk
 
         # Exact kernel-mode deflation: on a near-singular component c
@@ -305,8 +305,8 @@ def _a0diag_hi(S, p, q):
     ``E_ij = p_i^2 q_j^2 s_ij``."""
     p2 = p * p
     q2 = q * q
-    col = q2 * (S.T @ p2)     # (n,)
-    row = p2 * (S @ q2)       # (m,)
+    col = q2 * _mm(S.T, p2)   # (n,)
+    row = p2 * _mm(S, q2)     # (m,)
     return jnp.concatenate([col, row])
 
 
@@ -333,8 +333,8 @@ def make_aug_pcg_solver(p: jax.Array, q: jax.Array,
 
         def ae_mv(v):
             v1, v2 = v[:n], v[n:]
-            o1 = g[:n] * v1 - inv_tk * (E.T @ v2)
-            o2 = g[n:] * v2 - inv_tk * (E @ v1)
+            o1 = g[:n] * v1 - inv_tk * _mm(E.T, v2)
+            o2 = g[n:] * v2 - inv_tk * _mm(E, v1)
             return jnp.concatenate([o1, o2])
 
         def aug_mv(x):
@@ -365,7 +365,7 @@ def make_aug_pcg_solver(p: jax.Array, q: jax.Array,
 def make_direct_solver(p: jax.Array, q: jax.Array) -> NewtonSolver:
     """Dense direct solve of ``Jk zeta = rhs`` (``inner_solver=1``,
     ``Class1/APD_SsN_Class1.m:143-145``) — materializes the (n+m)^2 KKT
-    matrix; Cholesky on the MXU.  Intended for oracles/small systems."""
+    matrix; dense Cholesky.  Intended for oracles/small systems."""
     n = q.shape[0]
     m = p.shape[0]
 

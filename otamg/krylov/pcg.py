@@ -4,8 +4,9 @@ Shewchuk-style PCG as in reference ``PCG.m:1-6,76-86``: one operator
 application, one preconditioner application, two dots and three axpys per
 iteration, stopping on ``delta_new <= tol^2 * delta_0`` or ``maxit``.
 
-TPU-first redesign: the loop is a ``lax.while_loop`` over a small carry, so
-an entire solve is a single XLA computation — no per-iteration host sync.
+Accelerator-first redesign: the loop is a ``lax.while_loop`` over a small
+carry, so an entire solve is a single XLA computation — no per-iteration
+host sync.
 The operator and preconditioner are passed as *functions* (closures over
 whatever structure represents the matrix: masked-dense bipartite blocks,
 padded CSR, or an explicit dense array), which is how matrix-freedom is
@@ -26,6 +27,8 @@ import jax.numpy as jnp
 from jax import lax
 
 from otamg.config import PCGOptions, Preconditioner
+
+_P = lax.Precision.HIGHEST
 
 
 class PCGResult(NamedTuple):
@@ -137,9 +140,9 @@ def make_preconditioner(H: jax.Array, which: Preconditioner,
     * JACOBI — divide by ``diag(H)`` (reference default, ``PCG.m:23``).
     * SSOR   — ``omega*(2-omega) * (D+omega*U)^{-1} D (D+omega*L)^{-1}``
       via two dense triangular solves (``PCG.m:96-99``).
-    * ICHOL  — zero-fill incomplete Cholesky.  On TPU a dense Cholesky of
-      the (small, dense) coarse matrices is both faster and stronger, so
-      we use the *complete* factor; the reference only reaches this branch
+    * ICHOL  — zero-fill incomplete Cholesky.  On an accelerator a dense
+      Cholesky of the (small, dense) coarse matrices is both faster and
+      stronger, so we use the *complete* factor; the reference only reaches this branch
       when ``precd=4`` is hand-selected (``PCG.m:46``, never by defaults).
     * BI_SSOR — the explicit bipartite-SSOR inverse (``PCG.m:55-66``)
       requires the fine-node split ``nf``; built here densely.
@@ -187,9 +190,10 @@ def make_preconditioner(H: jax.Array, which: Preconditioner,
             r1, r2 = r[:nf], r[nf:]
             # [invV + w^2 invV U invT U' invV, -w invV U invT;
             #  -w invT U' invV,                 invT]
-            Ut_invV_r1 = U.T @ (invV * r1)
-            p1 = invV * r1 + (omega ** 2) * invV * (U @ (invT * Ut_invV_r1)) \
-                - omega * invV * (U @ (invT * r2))
+            Ut_invV_r1 = jnp.matmul(U.T, invV * r1, precision=_P)
+            p1 = invV * r1 + (omega ** 2) * invV * jnp.matmul(
+                U, invT * Ut_invV_r1, precision=_P) \
+                - omega * invV * jnp.matmul(U, invT * r2, precision=_P)
             p2 = -omega * invT * Ut_invV_r1 + invT * r2
             return scale * jnp.concatenate([p1, p2])
 
@@ -205,7 +209,7 @@ def pcg_matrix(H: jax.Array, e: jax.Array,
     """Reference-shaped entry ``[d, it, res, resk] = PCG(H, e,
     pcg_options)`` for an explicit dense matrix (``PCG.m:1``); pass
     ``resk=True`` for the per-iteration residual history (4th output)."""
-    matvec = lambda v: H @ v
+    matvec = lambda v: jnp.matmul(H, v, precision=_P)
     precond = make_preconditioner(H, opts.precd, opts.omega, nf)
     return pcg(matvec, e, precond, x0, opts.retol, opts.maxit,
                resk_len=opts.maxit if resk else 0)

@@ -29,13 +29,18 @@ def _build() -> bool:
     if (os.path.exists(_SO)
             and os.path.getmtime(_SO) >= os.path.getmtime(_SRC)):
         return True
+    # Build into a per-process file and rename it into place: processes
+    # importing this module at once (test workers) must never load a
+    # half-written library.
+    tmp = f"{_SO}.{os.getpid()}.tmp"
     cmd = ["g++", "-O3", "-std=c++17", "-shared", "-fPIC",
-           "-o", _SO, _SRC]
+           "-o", tmp, _SRC]
     try:
         subprocess.run(cmd, check=True, capture_output=True, timeout=120)
-        return True
-    except Exception:
+    except (OSError, subprocess.SubprocessError):
         return False
+    os.replace(tmp, _SO)
+    return True
 
 
 def _load() -> Optional[ctypes.CDLL]:

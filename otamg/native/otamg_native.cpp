@@ -4,7 +4,7 @@
 // (dmperm for components.m:36, sparse \ for Hybrid_AMG.m:91 and
 // transfer.m:21, ichol for PCG.m:46, CSC SpGEMM for transfer.m:66).
 // This module provides from-scratch C++ equivalents for the host side of
-// the TPU framework: problem-setup oracles, host-mode solves, and the
+// the framework: problem-setup oracles, host-mode solves, and the
 // data-loading pipeline.  Device-side equivalents live in otamg/amg and
 // otamg/sparse; this file is the L0 "implicit native layer" made explicit
 // (SURVEY.md section 2.4).

@@ -6,9 +6,9 @@ loop, matching reference ``Class1/warmup_class1.m`` and
 solves its KKT system exactly through the O(m+n) Schur inverses
 (``invAAt.m`` / ``invHHt.m``) — no inner linear iteration at all.
 
-TPU-first: the whole warm start is one ``lax.fori_loop`` inside jit; state
-lives as ``(m, n)`` matrices; per-iteration cost is a handful of fused
-O(mn) VPU passes plus four GEMVs.
+Accelerator-first: the whole warm start is one ``lax.fori_loop`` inside
+jit; state lives as ``(m, n)`` matrices; per-iteration cost is a handful
+of fused O(mn) elementwise passes plus four GEMVs.
 """
 
 from __future__ import annotations

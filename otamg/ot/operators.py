@@ -9,16 +9,17 @@ The discrete OT constraint matrix is the Kronecker-structured
 
 with marginal weights :math:`p \\in \\mathbb{R}^m`, :math:`q \\in
 \\mathbb{R}^n`.  The reference applies it matrix-free on the vectorised plan
-(``Ax.m:10-13``, ``Aty.m:10-13``).  TPU-first redesign: the plan is *always*
-held as the dense matrix :math:`X \\in \\mathbb{R}^{m \\times n}` (MATLAB's
-``vec`` is column-major, so ingest reshapes with ``order='F'``); every
-operator application is a GEMV/GEMM or rank-2 outer-product update that maps
-straight onto the MXU/VPU.  Dual vectors are flat ``(n + m,)`` arrays with
+(``Ax.m:10-13``, ``Aty.m:10-13``).  Accelerator-first redesign: the plan is
+*always* held as the dense matrix :math:`X \\in \\mathbb{R}^{m \\times n}`
+(MATLAB's ``vec`` is column-major, so ingest reshapes with ``order='F'``);
+every operator application is a GEMV/GEMM or rank-2 outer-product update
+that maps straight onto dense BLAS.  Dual vectors are flat ``(n + m,)`` arrays with
 the ``n`` block first, matching the reference layout ``y = [r-part; l-part]``.
 
 All functions are dtype-polymorphic and jit-safe (static shapes, no Python
 control flow on traced values).  Matmuls use ``Precision.HIGHEST`` because
-the downstream Newton solves need every bit of f32 accuracy on TPU.
+the downstream Newton solves need every bit of f32 accuracy (the default
+precision may round fp32 operands to TF32 on a GPU).
 """
 
 from __future__ import annotations
@@ -48,7 +49,7 @@ def apply_A(X: jax.Array, p: jax.Array, q: jax.Array,
 
     Returns the flat ``(n + m,)`` vector ``[X^T p; X q]``.  ``out_dtype``
     requests a higher accumulation precision (mixed-precision mode: fp32
-    storage with f64-accumulated reductions on TPU).
+    storage with f64-accumulated reductions).
     """
     kw = {} if out_dtype is None else {
         "preferred_element_type": out_dtype}
@@ -57,14 +58,12 @@ def apply_A(X: jax.Array, p: jax.Array, q: jax.Array,
     return jnp.concatenate([yn, ym])
 
 
-# Two-stage reduction chunk width.  A single long reduce is numerically
-# unsafe on the TPU's emulated f64: the accumulation is effectively
-# linear with ~4e-14 relative error per step, so a same-sign sum of N
-# elements loses ~4e-14*N relative accuracy (measured on v5e: a 250k
-# all-positive vdot came back with rel err 1.5e-9, enough to blow up the
-# Class-2 warm start through the (ak/bk)-amplified multiplier updates).
-# Splitting into 2048-wide chunks keeps every accumulator short (~2e-15
-# measured) at negligible cost; XLA fuses the reshape.
+# Two-stage reduction chunk width.  A single long reduce whose
+# accumulation is linear loses relative accuracy in proportion to its
+# length on a same-sign sum, and the Class-2 warm start amplifies that
+# error through its (ak/bk)-scaled multiplier updates.  Splitting into
+# 2048-wide chunks keeps every accumulator short at negligible cost; XLA
+# fuses the reshape.
 _CHUNK = 2048
 
 
@@ -72,10 +71,10 @@ def sum_chunked(x: jax.Array) -> jax.Array:
     """Numerically-safe sum of a 1-D array (recursive chunked reduce).
 
     Recursion keeps EVERY accumulator at most ``_CHUNK`` long: a two-stage
-    reduce would leave the outer accumulate linear in ``n / _CHUNK``
-    (a 4096^2 plan gives an 8192-term same-sign outer sum, ~3e-10 rel err
-    at the TPU's ~4e-14/step), while the recursive form holds the measured
-    ~2e-15 at every scale.  Depth is ceil(log_2048 n): static, tiny.
+    reduce would leave the outer accumulate linear in ``n / _CHUNK`` (a
+    4096^2 plan gives an 8192-term same-sign outer sum), while the
+    recursive form bounds every accumulator at every scale.  Depth is
+    ceil(log_2048 n): static, tiny.
     """
     n = x.shape[0]
     if n <= _CHUNK:
@@ -134,7 +133,7 @@ def apply_asat(z: jax.Array, S: jax.Array, p: jax.Array, q: jax.Array,
         out1 = d1*z1 + q * (Y^T (p*z2))
         out2 = p * (Y (q*z1)) + d2*z2
 
-    Two masked GEMVs over the ``(m, n)`` grid; O(mn) flops, fully on MXU.
+    Two masked GEMVs over the ``(m, n)`` grid; O(mn) flops.
     """
     n = q.shape[0]
     if d1 is None or d2 is None:
@@ -230,9 +229,8 @@ def feasibility_polish(X: jax.Array, y: jax.Array, z: jax.Array,
 
     Tail safeguard with no reference analogue: in the degenerate APD tail
     the complementarity residuals can sit at target while the feasibility
-    residual ``||H u - b||`` stalls on active-set chatter (the TPU's
-    emulated-f64 rounding is ~100x CPU's, which flips marginally-active
-    entries).  A least-norm projection fails here — it spreads correction
+    residual ``||H u - b||`` stalls on active-set chatter (rounding
+    coarser than the CPU's f64 flips marginally-active entries).  A least-norm projection fails here — it spreads correction
     mass onto the plan's zero entries where the nonneg clip undoes it —
     so instead:
 

@@ -1,7 +1,7 @@
 """Capacity-padded sparse containers (layer L0/L1 of the build).
 
 The reference leans on MATLAB's native CSC sparse type and SuiteSparse
-kernels (SURVEY.md section 2.4).  TPU-native sparse storage must have
+kernels (SURVEY.md section 2.4).  Accelerator sparse storage must have
 *static shapes*: every container carries a fixed capacity with a validity
 count, padding entries point at row/col 0 with value 0 so every kernel can
 ignore them arithmetically.
@@ -11,10 +11,10 @@ Containers:
 * :class:`COO` — coordinate triples, canonical (row-major, col-minor)
   order optional.  The assembly/exchange format.
 * :class:`CSR` — row-pointer form, plus an ELL-style padded view
-  (``row_cap`` entries per row) used by the Pallas SpMV kernel: TPU
-  kernels want rectangular tiles, not ragged rows.
+  (``row_cap`` entries per row) used by the ELL SpMV: a gather +
+  row-sum over rectangular arrays, not ragged rows.
 * :class:`BSR` — block-sparse rows with dense ``(bs, bs)`` blocks; SpMV
-  becomes batched small GEMV on the MXU.
+  becomes batched small GEMV.
 
 All are pytree-registered, so they pass through ``jit``/``scan``/
 ``while_loop`` freely.
@@ -217,7 +217,7 @@ class BSR:
     """Block-sparse rows: ``blocks[i, k]`` is the dense ``(bs, bs)`` block
     in block-row ``i`` at block-column ``block_cols[i, k]``; padded block
     slots use block-column 0 with an all-zero block.  SpMV is a batched
-    GEMV — MXU work."""
+    GEMV."""
 
     shape: tuple        # static (nrows, ncols), multiples of bs
     block_cols: Any     # (nbr, blk_cap) int32
@@ -274,7 +274,7 @@ class BSR:
 
 def spgemm(A: COO, B: CSR, out_capacity: int) -> COO:
     """Sparse general matrix-matrix product ``C = A @ B`` by
-    expansion-sort-compress (the TPU-shaped analogue of the SpGEMM MATLAB
+    expansion-sort-compress (the static-shape analogue of the SpGEMM MATLAB
     performs inside ``transfer.m:66``'s Galerkin triple product):
 
     every valid A-entry ``(i, k, v)`` expands against row ``k`` of B's ELL

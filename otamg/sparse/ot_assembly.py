@@ -13,8 +13,11 @@ from __future__ import annotations
 
 import jax
 import jax.numpy as jnp
+from jax import lax
 
 from otamg.sparse.containers import COO
+
+_P = lax.Precision.HIGHEST
 
 
 def asat_coo(S: jax.Array, p: jax.Array, q: jax.Array,
@@ -31,8 +34,8 @@ def asat_coo(S: jax.Array, p: jax.Array, q: jax.Array,
     N = n + m
     if capacity is None:
         capacity = 2 * m * n + N
-    d1 = S.T @ (p * p)
-    d2 = S @ (q * q)
+    d1 = jnp.matmul(S.T, p * p, precision=_P)
+    d2 = jnp.matmul(S, q * q, precision=_P)
     # off-diagonal entries: value q_j p_i s_ij at (j, n+i) and (n+i, j)
     vals_off = (q[None, :].T * S.T) * p[None, :]  # (n, m)
     jj = jnp.arange(n, dtype=jnp.int32)

@@ -468,7 +468,7 @@ def test_sparse_aggregation_hierarchy_large_banded():
 
 @pytest.mark.slow
 def test_extreme_bk1_newton_system_refines():
-    """Regression: the it=40 Newton system from the TPU fp32 trajectory
+    """Regression: the it=40 Newton system from an fp32 trajectory
     (spanning-tree active set, one giant near-singular component,
     bk1 ~ 6.5e-6) — the state where (a) matvec-computed kernel-projection
     quantities cancel to noise and (b) the solve-dtype Galerkin roundoff
@@ -482,7 +482,7 @@ def test_extreme_bk1_newton_system_refines():
     from otamg.ot import operators as op
 
     path = os.path.join(os.path.dirname(__file__), "data",
-                        "state39_tpu_fp32.npz")
+                        "state39_fp32.npz")
     fixture = "/root/reference/Class1/InputData/data1-500.mat"
     if not os.path.exists(fixture):
         pytest.skip("reference fixture not available")

@@ -7,8 +7,12 @@ import scipy.sparse as sp
 from otamg import native
 
 
-pytestmark = pytest.mark.skipif(not native.available(),
-                                reason="native toolchain unavailable")
+@pytest.fixture(autouse=True)
+def _needs_native():
+    # Decided per test, not at import: every xdist worker must collect the
+    # same tests.
+    if not native.available():
+        pytest.skip("native toolchain unavailable")
 
 
 def test_cc_bipartite_matches_device():

@@ -118,17 +118,39 @@ def test_apply_H_Ht_adjoint():
     np.testing.assert_allclose(lhs, rhs, rtol=1e-12)
 
 
-def test_mat_ingest_roundtrip(class1_fixture_path, class2_fixture_path):
+def test_mat_ingest_roundtrip(tmp_path):
+    """A reference-layout ``.mat`` (column vectors, MATLAB column-major
+    ``vec`` of the (m, n) matrices) loads back exactly."""
+    import scipy.io as sio
+
     from otamg.ot import load_class1_mat, load_class2_mat
 
-    prob = load_class1_mat(class1_fixture_path)
-    assert prob.m == 500 and prob.n == 500
-    np.testing.assert_allclose(float(jnp.sum(prob.r)), float(jnp.sum(prob.l)), rtol=1e-10)
+    rng = np.random.default_rng(0)
+    m, n = 6, 5
+    C = rng.random((m, n))
+    r = rng.random((n, 1))
+    l = rng.random((m, 1))
+    l *= r.sum() / l.sum()
+    vec = lambda M: M.reshape(-1, 1, order="F")
+    d1 = dict(m=m, n=n, c=vec(C), gama=np.full((m * n, 1), np.inf), r=r,
+              l=l, p=np.ones((m, 1)), q=np.ones((n, 1)))
+    path1 = str(tmp_path / "data1.mat")
+    sio.savemat(path1, d1)
+    prob = load_class1_mat(path1)
+    assert prob.m == m and prob.n == n
+    np.testing.assert_array_equal(np.asarray(prob.C), C)
+    np.testing.assert_array_equal(np.asarray(prob.r), r.ravel())
+    np.testing.assert_allclose(float(jnp.sum(prob.r)),
+                               float(jnp.sum(prob.l)), rtol=1e-10)
     assert bool(jnp.all(jnp.isinf(prob.gama)))
 
-    prob2 = load_class2_mat(class2_fixture_path)
-    assert prob2.m == 500 and prob2.n == 500
-    cap = min(float(jnp.vdot(prob2.r, prob2.q)), float(jnp.vdot(prob2.l, prob2.p)))
+    Phi = rng.random((m, n))
+    cap = min(float(r.sum()), float(l.sum()))
+    path2 = str(tmp_path / "data4.mat")
+    sio.savemat(path2, d1 | dict(phi=vec(Phi), mu=0.6 * cap))
+    prob2 = load_class2_mat(path2)
+    assert prob2.m == m and prob2.n == n
+    np.testing.assert_array_equal(np.asarray(prob2.Phi), Phi)
     assert 0.0 < float(prob2.mu) < cap
 
 

@@ -66,8 +66,8 @@ def test_ssor_matches_dense_oracle():
 
 def test_ichol_is_exact_inverse():
     """The ICHOL role is filled by a complete dense Cholesky (PCG.m:46
-    is only reachable by hand-selection); on TPU the dense factor of the
-    small coarse systems is both stronger and MXU-friendly."""
+    is only reachable by hand-selection); on an accelerator the dense
+    factor of the small coarse systems is both stronger and faster."""
     H = bipartite_spd()
     n = H.shape[0]
     apply_fn = make_preconditioner(H, Preconditioner.ICHOL)

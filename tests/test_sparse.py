@@ -102,59 +102,46 @@ def test_spgemm_vs_dense():
                                rtol=1e-12, atol=1e-12)
 
 
-def test_pallas_ell_spmv_interpret():
-    """Pallas kernel vs the XLA path (interpret mode on CPU)."""
-    rng = np.random.default_rng(6)
-    A = rand_sparse(rng, 70, 50, 0.2)
-    csr = CSR.from_dense(jnp.asarray(A, dtype=jnp.float32), row_cap=50)
-    x = jnp.asarray(rng.standard_normal(50), jnp.float32)
-    got = ell_spmv(csr.ell_cols, csr.ell_vals, x, block_rows=32,
-                   interpret=True)
-    np.testing.assert_allclose(np.asarray(got), A @ np.asarray(x),
-                               rtol=1e-4, atol=1e-4)
-    # and with a truncating row_cap, against the ELL view's own matvec
-    csr16 = CSR.from_dense(jnp.asarray(A, dtype=jnp.float32), row_cap=16)
-    got16 = ell_spmv(csr16.ell_cols, csr16.ell_vals, x, block_rows=32,
-                     interpret=True)
-    np.testing.assert_allclose(np.asarray(got16),
-                               np.asarray(csr16.matvec(x)),
-                               rtol=1e-4, atol=1e-4)
+def _ell_case(case, rng):
+    """(cols, vals, x, scipy CSR of the stored entries) for one ELL shape."""
+    import scipy.sparse as sp
+
+    if case == "oob":
+        # Out-of-range padding columns (violating the col-0/val-0
+        # invariant) must gather 0, not a clamped neighbour.
+        cols = np.asarray([[0, 5, 999], [2, 998, 997]])
+        vals = np.asarray([[1.0, 2.0, 3.0], [4.0, 5.0, 6.0]])
+        x = np.arange(200.0)
+        keep = cols < x.shape[0]
+    else:
+        # "single": one short row block; "wide": row capacity > 128.
+        nr, n, cap = (70, 50, 16) if case == "single" else (200, 300, 150)
+        A = rand_sparse(rng, nr, n, 0.45 if case == "wide" else 0.2)
+        csr = CSR.from_dense(jnp.asarray(A), row_cap=cap)
+        cols = np.asarray(csr.ell_cols)
+        vals = np.asarray(csr.ell_vals)
+        x = rng.standard_normal(n)
+        keep = vals != 0
+    rows = np.broadcast_to(np.arange(cols.shape[0])[:, None], cols.shape)
+    ref = sp.csr_matrix((vals[keep], (rows[keep], cols[keep])),
+                        shape=(cols.shape[0], x.shape[0]))
+    return cols, vals, x, ref
 
 
-def test_pallas_ell_spmv_multitile_interpret():
-    """Exercise the Pallas kernel's multi-tile logic (interpret mode):
-    cap > 128 makes nt > 1 (the pl.when t==0 init + cross-tile output
-    accumulation), n > 128 makes nc > 1 (the fori_loop masked-gather sweep
-    over 128-lane source chunks), with non-multiple-of-128 padding on both
-    axes — none of which the small cases above reach (round-2 advisor
-    finding)."""
-    rng = np.random.default_rng(42)
-    n = 300
-    A = rand_sparse(rng, 200, n, 0.45)       # max row nnz < 150 w.h.p.
-    csr = CSR.from_dense(jnp.asarray(A, dtype=jnp.float32), row_cap=150)
-    # rows may truncate at row_cap; compare against the ELL view itself
-    x = jnp.asarray(rng.standard_normal(n), jnp.float32)
-    got = ell_spmv(csr.ell_cols, csr.ell_vals, x, block_rows=64,
-                   interpret=True)
-    np.testing.assert_allclose(np.asarray(got), np.asarray(csr.matvec(x)),
-                               rtol=1e-4, atol=1e-4)
-
-
-def test_ell_spmv_out_of_range_padding_agreement():
-    """Both SpMV paths must zero-fill out-of-range padding columns, so a
-    caller that violates the col-0/val-0 invariant gets identical results
-    from the XLA and Pallas paths."""
-    from otamg.sparse.kernels import ell_spmv_xla
-
-    cols = jnp.asarray([[0, 5, 999], [2, 998, 997]], jnp.int32)
-    vals = jnp.asarray([[1.0, 2.0, 3.0], [4.0, 5.0, 6.0]], jnp.float32)
-    x = jnp.arange(6, dtype=jnp.float32)
-    ref = jnp.asarray([2.0 * 5.0, 4.0 * 2.0])   # OOB slots contribute 0
-    np.testing.assert_allclose(np.asarray(ell_spmv_xla(cols, vals, x)),
-                               np.asarray(ref), rtol=1e-6)
-    got = ell_spmv(cols, vals, jnp.pad(x, (0, 194)),  # n=200 > cap=3
-                   block_rows=2, interpret=True)
-    np.testing.assert_allclose(np.asarray(got), np.asarray(ref), rtol=1e-6)
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("case", ["single", "wide", "oob"])
+def test_ell_spmv_vs_scipy(case, dtype):
+    """The gather SpMV against scipy's CSR product of the stored entries:
+    one short row block, a row capacity past 128, and out-of-range
+    padding columns, in f32 and f64."""
+    cols, vals, x, ref = _ell_case(case, np.random.default_rng(6))
+    got = jax.jit(ell_spmv)(jnp.asarray(cols, jnp.int32),
+                            jnp.asarray(vals, dtype), jnp.asarray(x, dtype))
+    assert got.dtype == dtype
+    tol = 1e-5 if dtype == np.float32 else 1e-12
+    want = ref @ x.astype(dtype).astype(np.float64)
+    np.testing.assert_allclose(np.asarray(got), want, rtol=tol,
+                               atol=tol * np.abs(want).max())
 
 
 def test_asat_coo_vs_dense():
